@@ -1,8 +1,8 @@
 r"""CLI defaults and run-metadata (``config.json``) collection.
 
 Default values are parity-pinned to the reference CLI defaults
-(``bblean/_config.py:22-36``); the spec dump is annotated with TPU
-device/backend info on top of the reference's host fields.
+(``bblean/_config.py:22-36``); the spec dump is annotated with
+accelerator device/backend info on top of the reference's host fields.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def _host_specs() -> dict[str, tp.Any]:
 
     from bblean_tpu._memory import system_mem_gib
     from bblean_tpu.utils import (
+        _accelerators,
         _cpu_name,
-        _tpu_device_names,
         native_extensions_are_enabled,
         native_extensions_are_installed,
     )
@@ -53,7 +53,7 @@ def _host_specs() -> dict[str, tp.Any]:
         "initial_available_memory_gib": avail_mem,
         "platform": sys.platform,
         "cpu": _cpu_name(),
-        "accelerators": _tpu_device_names(),
+        **_accelerators(),
         "numpy_version": np.__version__,
         "python_version": sys.version.split()[0],
     }

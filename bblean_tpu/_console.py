@@ -21,7 +21,7 @@ _BANNER = r"""
 | |_) | |_) | |  __/ (_| | | | |_____| |_| |_) | |_| |
 |_.__/|_.__/|_|\___|\__,_|_| |_|      \__| .__/ \__,_|
                                          |_|
-      TPU-native BitBIRCH molecular clustering
+      BitBIRCH molecular clustering on JAX devices
 """
 
 
@@ -62,7 +62,7 @@ class BBConsole(Console):
         limit = stats.get("bytes_limit")
         if peak is None:
             return
-        line = f"    - Peak device HBM: {peak / 2**30:.2f} GiB"
+        line = f"    - Peak device memory: {peak / 2**30:.2f} GiB"
         if limit:
             line += f" of {limit / 2**30:.1f} GiB"
         self.print(line)

@@ -10,7 +10,7 @@ Parity notes (reference ``bblean/_memory.py``):
 - ``launch_monitor_rss_daemon`` samples process-tree RSS into
   ``monitor-rss.csv`` / ``max-rss.txt`` (reference ``_memory.py:143-198``).
 
-On TPU runs the analogous scale axis is device HBM:
+On device runs the analogous scale axis is device memory:
 ``device_memory_stats`` snapshots the backend's allocator stats
 (peak/current bytes in use, limit) for ``config.json`` and the console
 summary.
@@ -77,11 +77,11 @@ def system_mem_gib() -> tuple[float, float]:
 
 
 def device_memory_stats(device: tp.Any = None) -> dict[str, int] | None:
-    r"""Accelerator (HBM) memory stats of ``device`` (default: first device).
+    r"""Accelerator memory stats of ``device`` (default: first device).
 
-    The TPU analogue of the host-RSS telemetry the reference records per run
+    The device analogue of the host-RSS telemetry the reference records per run
     (``bblean/_memory.py:143-198``): a device framework's scarce resource is
-    HBM, so runs persist ``peak_bytes_in_use``/``bytes_limit`` next to the
+    device memory, so runs persist ``peak_bytes_in_use``/``bytes_limit`` next to the
     host numbers.  Returns None when the backend exposes no stats (CPU).
     """
     try:

@@ -4,7 +4,7 @@ All six built-in criteria of the reference (``bblean/_merges.py:9-16``) are
 provided with identical decision semantics, exposed both as the classic
 callable-object API (used by the exact engine) and, in
 ``bblean_tpu.ops.merges``, as vectorized device predicates for the batched
-TPU engine.
+device engine.
 
 Decision rules (``t`` = threshold, ``isim``/``rc`` = diameter/radius cohesion
 of a candidate merged cluster-feature):

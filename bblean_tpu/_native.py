@@ -3,7 +3,7 @@ r"""Loader for the native (C++) host library.
 The native library ``libbblean_native.so`` (built from ``bblean_tpu/csrc`` via
 ``python setup.py build_native`` or the Makefile) provides:
 
-- SIMD popcount / Tanimoto / iSIM kernels for the host path (the TPU path uses
+- SIMD popcount / Tanimoto / iSIM kernels for the host path (the device path uses
   ``bblean_tpu.ops`` instead), and
 - a full native implementation of the exact serial-equivalent BitBirch insert
   loop (``bb_exact_fit``), which the reference keeps in Python

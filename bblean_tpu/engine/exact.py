@@ -9,7 +9,7 @@ descend-then-unwind insert**, which
 - removes recursion limits (trees pickle without recursion-depth hacks),
 - keeps all cluster-feature state in contiguous per-node buffers friendly to
   vectorized kernels, and
-- is the layout shared by the native C++ engine and the TPU batch engine.
+- is the layout shared by the native C++ engine and the device batch engine.
 
 Decision-order contract replicated exactly (validated by golden-fixture
 conformance tests):

@@ -27,7 +27,7 @@ __all__ = [
     "unpack_fingerprints",
 ]
 
-try:  # RDKit is an optional dependency (not available in all TPU images)
+try:  # RDKit is an optional dependency (not installed everywhere)
     from rdkit.Chem import (  # type: ignore
         MolFromSmiles,
         SanitizeFlags,

@@ -10,8 +10,8 @@ re-inserted first) and a final round merges everything into ``clusters.pkl``.
 
 This file-based path is the drop-in equivalent of the reference CLI's
 ``bb multiround`` and runs any number of processes on the host.  The
-TPU-native equivalent — device-sharded builds with ``all_gather`` CF exchange
-over ICI instead of files — lives in ``bblean_tpu.parallel.sharded``; use it
+device equivalent — device-sharded builds with collective CF exchange
+instead of files — lives in ``bblean_tpu.parallel.sharded``; use it
 when the shards fit device memory and a mesh is available.
 """
 

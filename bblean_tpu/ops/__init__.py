@@ -1,14 +1,14 @@
-r"""JAX/XLA/Pallas device ops — the TPU compute path.
+r"""JAX/XLA device ops — the accelerator compute path.
 
 Design: the reference's hot kernels (C++ popcount/Tanimoto loops,
-``bblean/csrc/similarity.cpp``) do not translate to TPU; instead:
+``bblean/csrc/similarity.cpp``) become whole-array XLA programs instead:
 
-- Similarity *search* (many fps vs many centroids) is an MXU matmul over
+- Similarity *search* (many fps vs many centroids) is a matmul over
   unpacked 0/1 int8/bf16 planes: ``|x & y| == <x, y>`` for binary vectors
-  (``bblean_tpu.ops.tanimoto``).
-- Packed-domain reductions (popcount, AND+popcount for a few vectors) run on
-  the VPU via ``lax.population_count`` over int32 lanes
-  (``bblean_tpu.ops.popcount``).
+  (``bblean_tpu.ops.tanimoto``), which XLA hands to the matrix units.
+- Packed-domain reductions (popcount, AND+popcount for a few vectors) are
+  ``lax.population_count`` over bytes widened to int32
+  (``bblean_tpu.ops.popcount``), fused by XLA with the gather and AND.
 - iSIM / merge-criteria evaluation is batched elementwise arithmetic over
   candidate linear sums (``bblean_tpu.ops.isim``, ``bblean_tpu.ops.merges``).
 - Bit pack/unpack is shift/compare arithmetic (``bblean_tpu.ops.packing``).

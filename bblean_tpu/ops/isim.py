@@ -1,7 +1,7 @@
 r"""Device-side batched iSIM and radius cohesion.
 
 The host kernels (``bblean_tpu._np_similarity``) evaluate one linear sum at a
-time in float64.  The TPU path evaluates *batches* of candidate cluster
+time in float64.  The device path evaluates *batches* of candidate cluster
 features at once — one row per candidate — in float32 (documented precision
 contract of the batch engine; the exact engines keep float64 on host).
 
@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 from jax import Array
+
+from bblean_tpu.ops.divide import div_rn
 
 __all__ = [
     "isim_from_sums",
@@ -43,7 +45,7 @@ def isim_from_sums(ls: Array, n: Array) -> Array:
     nf = n.astype(jnp.float32)
     a = (ksq - k) * 0.5
     denom = a + nf * k - ksq
-    isim = a / denom
+    isim = div_rn(a, denom)
     isim = jnp.where(k == 0, 1.0, isim)
     return jnp.where(n < 2, jnp.nan, isim)
 

@@ -2,12 +2,12 @@ r"""Device k-means over cluster centroids (global clustering).
 
 The reference's experimental ``global_clustering`` hands leaf centroids to
 sklearn's host KMeans (``bblean/bitbirch.py:1355-1425``).  This is the
-TPU-native equivalent: k-means++ seeding and Lloyd iterations as jitted XLA
-programs — every distance pass is one MXU matmul, the center update one
+device equivalent: k-means++ seeding and Lloyd iterations as jitted XLA
+programs — every distance pass is one matmul, the center update one
 segment-sum — so re-clustering 100k+ centroids stays on device.
 
 Works on any backend (tests run it on CPU); selected through
-``BitBirch.global_clustering(method="kmeans-tpu")``.
+``BitBirch.global_clustering(method="kmeans-jax")``.
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ __all__ = ["kmeans_fit_predict"]
 
 
 def _sq_dists(x: Array, c: Array, x_sq: Array) -> Array:
-    r"""Squared euclidean distances (N, K) via one MXU matmul."""
+    r"""Squared euclidean distances (N, K) via one matmul (full f32
+    precision: a TF32 product would move points across Voronoi borders)."""
     prod = lax.dot_general(
-        x, c, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
+        x, c, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
     )
     c_sq = jnp.sum(c * c, axis=-1)
     return jnp.maximum(x_sq[:, None] - 2.0 * prod + c_sq[None, :], 0.0)

@@ -1,7 +1,7 @@
 r"""Device-side fingerprint bit packing / unpacking.
 
-TPU has no ``np.packbits`` equivalent; packing is expressed as arithmetic the
-VPU vectorizes trivially:
+XLA has no ``np.packbits`` equivalent; packing is expressed as elementwise
+arithmetic that XLA fuses:
 
 - unpack: broadcast each byte against the 8 bit positions and mask
   (big-endian bit order, matching ``np.unpackbits``).
@@ -9,8 +9,7 @@ VPU vectorizes trivially:
   (matching ``np.packbits``).
 
 These are jit-friendly (static shapes) and used at the batch-engine edges;
-inside the engine everything stays in the unpacked int8 domain, which is what
-the MXU wants.
+inside the engine the matmuls run in the unpacked int8 domain.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 r"""Device-side popcount over packed fingerprint rows.
 
-Packed uint8 bytes are widened to int32 lanes and counted with
-``lax.population_count`` on the VPU.  (Reinterpreting 4 bytes per int32 word
-would quarter the lane count, but TPU uint8->int32 widening is free enough
-that the simple form wins for the row lengths used here, and it keeps the
-kernel shape-agnostic.)
+Packed uint8 bytes are widened to int32 and counted with
+``lax.population_count``, one byte per 32-bit element; XLA fuses the
+widening, AND and popcount with the surrounding gather and reduction.  The
+form is shape-agnostic (any byte count).  Counting 32- or 64-bit words
+instead would take 4-8x fewer popcounts; whether that pays on the GPU is
+open work (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

@@ -1,19 +1,20 @@
 r"""Device-side Tanimoto similarity.
 
-Two regimes, matching TPU hardware units:
+Two regimes:
 
-1. **Search (array vs array) — MXU.**  For binary vectors,
+1. **Search (array vs array) — matmul.**  For binary vectors,
    ``|x & y| = <x, y>``, so the full (N, C) intersection matrix of N query
    fps against C centroids is ONE matmul of the unpacked 0/1 planes.  This is
    the structural rewrite of the reference's per-row C++ popcount loop
    (``bblean/csrc/similarity.cpp:304-379``): where the CPU does N*C*B byte
-   ANDs + popcounts, the TPU streams the same arithmetic through the 128x128
-   systolic array at matmul rates.  We feed the MXU bf16 planes (0/1 values
+   ANDs + popcounts, the device runs the same arithmetic as one matrix
+   product on its matrix units.  The operands are bf16 planes (0/1 values
    are exact in bf16; products accumulate in f32, exact up to 2^24 — far
    above any fingerprint width).
 
-2. **Packed array-vs-vector — VPU.**  For a single probe (exact-engine style
-   descents or host-parity checks), AND + population_count over int32 lanes.
+2. **Packed array-vs-vector — popcount.**  For a single probe (exact-engine
+   style descents or host-parity checks), AND + population_count over bytes
+   widened to int32.
 
 Denominator semantics follow the host kernels: union clamped to >= 1.
 """
@@ -34,7 +35,7 @@ __all__ = ["tanimoto_matmul", "intersection_matmul", "tanimoto_packed_arr_vec"]
 def intersection_matmul(queries: Array, centroids: Array) -> Array:
     r"""(N, F) x (C, F) 0/1 planes -> (N, C) int32 intersection counts.
 
-    Runs on the MXU in bf16 with f32 accumulation (exact for counts < 2^24).
+    bf16 operands with f32 accumulation (exact for counts < 2^24).
     """
     q = queries.astype(jnp.bfloat16)
     c = centroids.astype(jnp.bfloat16)
@@ -69,7 +70,7 @@ def tanimoto_matmul(
 
 @functools.partial(jax.jit, static_argnames=())
 def tanimoto_packed_arr_vec(x: Array, y: Array) -> Array:
-    r"""Tanimoto of packed (N, B) rows vs one packed (B,) vector (VPU path)."""
+    r"""Tanimoto of packed (N, B) rows vs one packed (B,) vector (popcount)."""
     inter = popcount_device(jnp.bitwise_and(x, y[None, :]))
     union = popcount_device(x) + popcount_device(y) - inter
     return inter.astype(jnp.float32) / jnp.maximum(union, 1).astype(jnp.float32)

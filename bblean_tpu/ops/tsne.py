@@ -4,7 +4,7 @@ The reference uses openTSNE with FFT gradients for very large point sets
 (``bblean/plotting.py:297-394``).  This framework's plotting path embeds the
 *top clusters'* fingerprints (thousands of points, not millions), where the
 exact O(N^2) gradient is small enough to run entirely on the accelerator:
-pairwise distances and the attraction/repulsion terms are MXU matmuls, the
+pairwise distances and the attraction/repulsion terms are matmuls, the
 per-point perplexity calibration is a vectorized bisection, and the descent
 loop is one ``lax.fori_loop`` — no host round-trips after the upload.
 
@@ -25,9 +25,13 @@ __all__ = ["tsne_embed"]
 
 def _pairwise_sq_dists(x):
     import jax.numpy as jnp
+    from jax import lax
 
     sq = jnp.sum(x * x, axis=1)
-    d2 = sq[:, None] - 2.0 * (x @ x.T) + sq[None, :]
+    # Full f32 products: a TF32 matmul (the GPU default) keeps ~3 digits,
+    # which distorts the small distances the affinities are built from
+    gram = jnp.matmul(x, x.T, precision=lax.Precision.HIGHEST)
+    d2 = sq[:, None] - 2.0 * gram + sq[None, :]
     return jnp.maximum(d2, 0.0)
 
 
@@ -91,7 +95,10 @@ def _descend(p, y0, n_iter: int, exaggeration: float, early_exag: float,
         mult = (exag * p - q) * w ** (1.0 / a)  # (P-Q) * (1+d2/dof)^-1
         # dC/dy_i = 4 * sum_j mult_ij (y_i - y_j)
         row = jnp.sum(mult, axis=1)
-        return 4.0 * (row[:, None] * y - mult @ y)
+        return 4.0 * (
+            row[:, None] * y
+            - jnp.matmul(mult, y, precision=lax.Precision.HIGHEST)
+        )
 
     def body(i, carry):
         y, vel, gains = carry

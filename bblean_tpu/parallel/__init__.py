@@ -1,11 +1,11 @@
 r"""Multi-device (SPMD) clustering over ``jax.sharding`` meshes.
 
-The TPU-native replacement for the reference's multiprocessing + files-on-disk
+The device replacement for the reference's multiprocessing + files-on-disk
 parallel pipeline (``bblean/multiround.py``): fingerprints stream through a
 1-D data-parallel mesh in sharded windows, every device builds its own
 sparse CF-forest with the batched engine (no collectives during the fit),
-and ``ceil(log2(D))`` ``ppermute`` reduction rounds merge the forests over
-ICI with group-granular exchange (bulk tile appends for shard-local groups,
+and ``ceil(log2(D))`` ``ppermute`` reduction rounds merge the forests with
+group-granular exchange (bulk tile appends for shard-local groups,
 row-level re-insertion only for cross-shard near-duplicates).
 """
 

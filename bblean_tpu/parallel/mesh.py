@@ -12,9 +12,9 @@ __all__ = ["get_mesh"]
 def get_mesh(n_devices: int | None = None, axis_name: str = "dp") -> Mesh:
     r"""A 1-D mesh over the first ``n_devices`` devices (all by default).
 
-    Clustering is data-parallel over fingerprint rows, so a single ``dp``
-    axis rides ICI on a pod slice; multi-host layouts keep the same axis and
-    let XLA place the all-gathers on ICI within a slice and DCN across.
+    Clustering is data-parallel over fingerprint rows, so one ``dp`` axis
+    is all the mesh needs: the GPUs of one host reach each other all to all
+    over NVLink at the same rate, and XLA hands the collectives to NCCL.
     """
     devices = jax.devices()
     if n_devices is not None:

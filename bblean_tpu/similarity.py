@@ -7,7 +7,7 @@ reference facade ``bblean/similarity.py:47-103``):
    ``BBLEAN_TPU_NO_EXTENSIONS`` (or legacy ``BITBIRCH_NO_EXTENSIONS``) env var.
 2. NumPy reference kernels (``bblean_tpu._np_similarity``), always available.
 
-Large-scale batched similarity on TPU lives in ``bblean_tpu.ops`` — this
+Large-scale batched similarity on the device lives in ``bblean_tpu.ops`` — this
 module is the scalar/host surface used by the exact tree engine, metrics and
 analysis utilities.
 """

@@ -13,7 +13,7 @@ Differences by design:
 - The insert loop runs in the native C++ engine when built
   (``bblean_tpu.engine.native``; disable with ``BBLEAN_TPU_NO_EXTENSIONS=1``)
   — bit-identical labels either way.
-- The TPU-native batched engine is a separate class
+- The batched device engine is a separate class
   (``bblean_tpu.engine.batch.BatchTree``; ``bb run --engine batch``): it
   trades bit-exact label parity for device-scale throughput.
 """
@@ -120,7 +120,7 @@ class _MedoidsMolIds(tp.TypedDict):
 
 
 class BitBirch:
-    r"""BitBIRCH clustering estimator (TPU-native framework, exact host engine).
+    r"""BitBIRCH clustering estimator (exact host engine).
 
     Parameters mirror the reference: ``threshold`` (similarity acceptance
     level, default 0.65), ``branching_factor`` (max subclusters per node,
@@ -772,7 +772,7 @@ class BitBirch:
     ) -> NDArray[np.int64]:
         r""":meta private:"""
         if method not in {
-            "agglomerative", "kmeans", "kmeans-normalized", "kmeans-tpu"
+            "agglomerative", "kmeans", "kmeans-normalized", "kmeans-jax"
         }:
             raise ValueError(f"Unknown method {method}")
 
@@ -785,7 +785,7 @@ class BitBirch:
             # that filter on it, falling back only on the sklearn-free path
             try:
                 from sklearn.exceptions import ConvergenceWarning as _ConvWarn
-            except ImportError:  # kmeans-tpu works without sklearn
+            except ImportError:  # kmeans-jax works without sklearn
                 _ConvWarn = UserWarning  # type: ignore[assignment,misc]
             warnings.warn(
                 f"Number of subclusters found ({num_centrals}) by BitBIRCH is"
@@ -794,8 +794,8 @@ class BitBirch:
                 stacklevel=2,
             )
             n_clusters = num_centrals
-        if method == "kmeans-tpu":
-            # Device k-means (MXU Lloyd iterations); no sklearn needed
+        if method == "kmeans-jax":
+            # Device k-means (matmul Lloyd iterations); no sklearn needed
             from bblean_tpu.ops.kmeans import kmeans_fit_predict
 
             return kmeans_fit_predict(

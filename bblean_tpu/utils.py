@@ -85,14 +85,21 @@ def _cpu_name() -> str:
     return platform.processor()
 
 
-def _tpu_device_names() -> list[str]:
-    r"""Names of visible accelerator devices (empty if JAX not initialized)."""
-    try:
-        import jax
+def _accelerators() -> dict[str, tp.Any]:
+    r"""Visible JAX devices and their kind, for ``config.json``.
 
-        return [str(d) for d in jax.devices()]
-    except Exception:
-        return []
+    Empty when this process never imported JAX: recording the run's
+    devices must not start a backend (and reserve device memory) itself.
+    """
+    if "jax" not in sys.modules:
+        return {"accelerators": [], "accelerator_kind": None}
+    import jax
+
+    devices = jax.devices()
+    return {
+        "accelerators": [str(d) for d in devices],
+        "accelerator_kind": devices[0].device_kind if devices else None,
+    }
 
 
 def _has_files_or_valid_symlinks(path: Path) -> bool:

@@ -26,8 +26,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from bblean_tpu._jax_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from bblean_tpu.engine.batch import BatchTree
     from bblean_tpu.fingerprints import make_fake_fingerprints

@@ -24,8 +24,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from bblean_tpu._jax_cache import enable_persistent_cache
+
+    enable_persistent_cache()
     import jax.numpy as jnp
 
     from bblean_tpu.engine.batch import BatchTree, _scan_fit_packed
@@ -67,7 +68,7 @@ def main() -> None:
             jnp.float32(tree.threshold), jnp.float32(tree.tolerance),
             k=k, m=m, n_features=tree.n_features,
             criterion=tree.merge_criterion, block=tree.route_block,
-            max_rounds=tree.max_rounds, use_pallas=tree.use_pallas_search,
+            max_rounds=tree.max_rounds,
             narrow=m // 4, split_k=tree.split_k, fanout=tree.fanout,
         )
         encs_np = np.asarray(encs)  # sync

@@ -1,70 +1,133 @@
-r"""Parse a jax.profiler trace.json.gz: exclusive device-op times.
+r"""Reduce a ``jax.profiler`` trace to device time per op and per scope.
 
-Reconstructs parent/child nesting from (ts, dur) intervals per tid and
-prints each op name's EXCLUSIVE time (self time minus nested children), so
-`while.*` wrappers don't mask the fusions inside them.
+Reads the ``.xplane.pb`` that ``jax.profiler.start_trace(dir)`` writes under
+``dir/plugins/profile/<time>/`` with ``jax.profiler.ProfileData`` (nothing
+beyond JAX).  Device events are those on the planes named ``/device:GPU:*``;
+each kernel event carries the ``hlo_module`` and ``hlo_op`` it ran for.
+Events are counted once per stream line (derived summary lines such as
+"XLA Ops" repeat them and are skipped).
 
-    python benchmarks/parse_trace.py /tmp/bbtrace [top_n]
+``scope_time`` attributes each event to a ``jax.named_scope`` through the
+``op_name`` metadata of the optimized HLO (``compiled.as_text()``), which is
+how the engine's ``route_groups`` and ``tile_search`` scopes are found after
+XLA renames and fuses their ops.
+
+    python benchmarks/parse_trace.py <trace_dir> [top_n]
 """
 
 from __future__ import annotations
 
 import collections
 import glob
-import gzip
-import json
+import re
 import sys
+
+_SKIP_LINES = ("XLA Modules", "XLA Ops", "Steps", "XLA TraceMe")
+
+
+def latest_xplane(trace_dir: str) -> str:
+    files = sorted(glob.glob(f"{trace_dir}/plugins/profile/*/*.xplane.pb"))
+    if not files:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    return files[-1]
+
+
+def device_events(xplane_path: str) -> list[dict]:
+    r"""Kernel events on the GPU planes: name, module, op, start, duration
+    (nanoseconds), plane and line."""
+    import jax
+
+    data = jax.profiler.ProfileData.from_file(xplane_path)
+    out = []
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            if line.name in _SKIP_LINES:
+                continue
+            for ev in line.events:
+                stats = dict(ev.stats)
+                out.append({
+                    "name": ev.name,
+                    "module": stats.get("hlo_module", ""),
+                    "op": stats.get("hlo_op", ev.name),
+                    "start_ns": float(ev.start_ns),
+                    "dur_ns": float(ev.duration_ns),
+                    "plane": plane.name,
+                    "line": line.name,
+                })
+    return out
+
+
+def busy_ns(events: list[dict]) -> float:
+    r"""Length of the union of the events' intervals (device busy time)."""
+    spans = sorted((e["start_ns"], e["start_ns"] + e["dur_ns"]) for e in events)
+    total, cur_a, cur_b = 0.0, None, None
+    for a, b in spans:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                total += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        total += cur_b - cur_a
+    return total
+
+
+_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*op_name=\"([^\"]*)\"")
+
+
+def op_names(hlo_text: str) -> dict[str, str]:
+    r"""HLO instruction name -> ``op_name`` metadata, from optimized HLO."""
+    out = {}
+    for line in hlo_text.splitlines():
+        m = _INSTR.match(line)
+        if m:
+            out[m.group(1)] = m.group(2)
+    return out
+
+
+def scope_time(
+    events: list[dict], hlo_text: str, scopes: tuple[str, ...]
+) -> dict[str, float]:
+    r"""Device nanoseconds per scope (first matching scope in ``op_name``),
+    over the events whose op appears in ``hlo_text``; ``"total"`` is every
+    such event."""
+    names = op_names(hlo_text)
+    out = collections.Counter()
+    for e in events:
+        op_name = names.get(e["op"])
+        if op_name is None:
+            continue
+        out["total"] += e["dur_ns"]
+        for s in scopes:
+            if f"/{s}/" in f"/{op_name}/":
+                out[s] += e["dur_ns"]
+                break
+    return dict(out)
 
 
 def main() -> None:
-    root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/bbtrace"
+    root = sys.argv[1]
     top_n = int(sys.argv[2]) if len(sys.argv) > 2 else 40
-    f = sorted(glob.glob(f"{root}/plugins/profile/*/*.trace.json.gz"))[-1]
-    data = json.load(gzip.open(f))
-    events = data["traceEvents"] if isinstance(data, dict) else data
-
-    pids = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pids[e["pid"]] = e["args"].get("name", "")
-
-    by_tid = collections.defaultdict(list)
-    for e in events:
-        if e.get("ph") == "X" and "dur" in e:
-            if "TPU" in pids.get(e.get("pid"), ""):
-                by_tid[(e["pid"], e.get("tid"))].append(e)
-
-    excl = collections.Counter()
-    incl = collections.Counter()
+    events = device_events(latest_xplane(root))
+    if not events:
+        raise SystemExit("no GPU device events in the trace")
+    window = max(e["start_ns"] + e["dur_ns"] for e in events) - min(
+        e["start_ns"] for e in events
+    )
+    busy = busy_ns(events)
+    by_op = collections.Counter()
     cnt = collections.Counter()
-    for evs in by_tid.values():
-        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        stack: list[dict] = []
-        child_time = {}  # id(event) -> time covered by direct children
-        for e in evs:
-            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]:
-                done = stack.pop()
-                excl[done["name"]] += done["dur"] - child_time.pop(id(done), 0)
-            if stack:
-                child_time[id(stack[-1])] = (
-                    child_time.get(id(stack[-1]), 0) + e["dur"]
-                )
-            incl[e["name"]] += e["dur"]
-            cnt[e["name"]] += 1
-            stack.append(e)
-            child_time.setdefault(id(e), 0)
-        while stack:
-            done = stack.pop()
-            excl[done["name"]] += done["dur"] - child_time.pop(id(done), 0)
-
-    total = sum(excl.values())
-    print(f"total device time (exclusive sum): {total / 1e6:.3f}s")
-    print(f"{'excl_s':>8} {'incl_s':>8} {'count':>6}  name")
-    for name, d in excl.most_common(top_n):
-        print(
-            f"{d / 1e6:8.3f} {incl[name] / 1e6:8.3f} {cnt[name]:6d}"
-            f"  {name[:100]}"
-        )
+    for e in events:
+        by_op[e["op"]] += e["dur_ns"]
+        cnt[e["op"]] += 1
+    print(f"window {window / 1e6:.3f} ms, busy {busy / 1e6:.3f} ms, "
+          f"idle share {1 - busy / window:.4f}")
+    print(f"{'ms':>10} {'count':>6}  op")
+    for op, d in by_op.most_common(top_n):
+        print(f"{d / 1e6:10.3f} {cnt[op]:6d}  {op[:100]}")
 
 
 if __name__ == "__main__":

@@ -1,36 +1,22 @@
-"""North-star scale validation: 10M x 2048-bit fingerprints, one chip.
+"""Scale validation: 10M x 2048-bit fingerprints on one device.
 
-Measured on a single TPU v5e (2026-08-19, fused-scan + depth-pipelined
-engine; timed tree warmed via ``warm_programs`` so compile/program-load and
-first-window allocator churn are excluded — the timing covers every host
-bookkeeping and boundary-sync cost of the steady engine):
-
-    t=0.3 (the reference CLI's default): fit 77.8 s = 128,456 fps/s (11.6x
-        the reference's single-core C++ cap); 3,977,532 clusters; 17,364
-        groups; 16,849 ls-pool rows; input device-resident;
-        cluster_mols() for 10M rows: 17 s
-    t=0.65 (the library default): fit 91.3-96.8 s = 103,324-109,562 fps/s
-        (9.3-9.9x) over two runs; 9,783,327 clusters; 43,003 groups; 2,588
-        ls-pool rows; tables ~10 GiB + the 2.56 GiB input resident;
-        host-streamed fallback for inputs that exceed HBM:
-        152.5 s = 65,579 fps/s
-    20M @ t=0.3 (streamed input, g_capacity 2^15, ls_capacity 2^16,
-        2026-08-16 round-2 engine — predates the numbers above):
-        fit 259.8 s = 76,990 fps/s; 7,981,627 clusters
-
-Cluster counts are bit-identical across engine revisions (same seed =>
-same labels); only the wall time moves.
+Times a warmed fit (``warm_programs`` first, so compile and first-window
+allocator churn are excluded — the timing covers every host bookkeeping
+and boundary-sync cost of the steady engine), then mol extraction, and
+checks the device-memory peak.  Earlier runs of this seed gave 3,977,532
+clusters at t=0.3 and 9,783,327 at t=0.65 (cluster counts do not depend on
+the device's speed); no GPU time has been recorded yet.
 
 Usage: python benchmarks/scale_10m.py [n_millions] [threshold] [streamed]
 
 Pass ``streamed`` as the third argument to force the host-streamed input
-path even when the input would fit HBM — this measures the configuration
+path even when the input would fit the device — this measures the configuration
 that carries inputs past ~12M rows (the reference's 100M+ design scale).
 
 Fingerprints stream from host batch-by-batch (one-ahead overlap), so the
-input array never occupies HBM; with `threshold >= 0.5` the sparse
-linear-sum pool keeps per-cluster memory at F/8 bytes for singletons, which
-is what fits ~10M clusters on a 16 GB chip (see docs/tpu-memory.md).
+input array never needs to be resident; with `threshold >= 0.5` the sparse
+linear-sum pool keeps per-cluster memory at F/8 bytes for singletons (see
+docs/device-memory.md).
 """
 
 import sys
@@ -45,11 +31,9 @@ import jax
 
 from pathlib import Path
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    str(Path(__file__).resolve().parent.parent / ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from bblean_tpu._jax_cache import enable_persistent_cache  # noqa: E402
+
+enable_persistent_cache()
 
 from bblean_tpu.engine.batch import BatchTree
 from bblean_tpu.fingerprints import make_fake_fingerprints
@@ -150,14 +134,14 @@ def main() -> None:
     hbm = device_memory_stats() or {}
     peak = hbm.get("peak_bytes_in_use")
     if peak is not None:
-        print(f"HBM peak: {peak / 2**30:.2f} GiB")
-        # Machine-check of the docs/tpu-memory.md budget: the 10M configs
-        # must stay within a 16 GiB chip with headroom (tiles ~8.6 GiB at
-        # t=0.65, tables ~5 GiB + 2.6 GiB staged input at t=0.3)
+        print(f"device memory peak: {peak / 2**30:.2f} GiB")
+        # Machine-check of the docs/device-memory.md arithmetic: the 10M
+        # configs hold ~10 GiB of tables at t=0.65 (tiles ~8.6 GiB) and
+        # ~5 GiB + 2.6 GiB staged input at t=0.3
         budget_gib = 14.0
         if n_m <= 10 and peak / 2**30 > budget_gib:
             raise SystemExit(
-                f"HBM regression: peak {peak / 2**30:.2f} GiB exceeds the "
+                f"device memory regression: peak {peak / 2**30:.2f} GiB exceeds the "
                 f"{budget_gib} GiB budget for the {n_m}M config"
             )
 

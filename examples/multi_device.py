@@ -6,7 +6,8 @@ CPU-only machine, launch with a virtual 8-device mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multi_device.py
 
-The same script on a TPU pod slice uses every chip over ICI.
+On a host with several GPUs the same script uses every card (collectives
+over NVLink).
 """
 
 import numpy as np

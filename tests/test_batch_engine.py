@@ -1,4 +1,4 @@
-r"""Batched TPU engine tests: invariants, near-serial agreement, determinism,
+r"""Batched device engine tests: invariants, near-serial agreement, determinism,
 capacity growth, and buffer mode."""
 
 import numpy as np

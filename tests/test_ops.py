@@ -174,7 +174,7 @@ def test_isim_precision_at_scale() -> None:
 
 def test_kmeans_device() -> None:
     r"""Device k-means recovers well-separated blobs and beats a random
-    labeling on inertia (TPU analogue of sklearn global clustering)."""
+    labeling on inertia (device analogue of sklearn global clustering)."""
     import numpy as np
 
     from bblean_tpu.ops.kmeans import kmeans_fit_predict

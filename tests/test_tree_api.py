@@ -198,7 +198,7 @@ def test_global_clustering_kmeans_tpu() -> None:
     r"""Device k-means path: no sklearn involved, same label contract."""
     fps = make_fake_fingerprints(100, seed=SEED)
     tree = BitBirch(threshold=0.3).fit(fps)
-    tree.global_clustering(3, method="kmeans-tpu", seed=0)
+    tree.global_clustering(3, method="kmeans-jax", seed=0)
     labels = tree.get_assignments(global_clusters=True)
     assert set(np.unique(labels)) <= {1, 2, 3}
     mol_ids = tree.get_cluster_mol_ids(global_clusters=True)
